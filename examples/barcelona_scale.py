@@ -18,22 +18,22 @@ import time
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     ap.add_argument("--iterations", type=int, default=200)
     ap.add_argument("--scenarios", type=int, default=25,
                     help="5*ceil(K/5) scenarios via branching [5, K/5]")
     args = ap.parse_args()
 
     if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+        from rapidnet_jax.utils.platform import use_platform
+        use_platform(args.platform)
 
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.solver.controller import SmpcController
-    from rapidnet_tpu.solver.tuning import auto_tune
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.solver.controller import SmpcController
+    from rapidnet_jax.solver.tuning import auto_tune
 
     # Barcelona DWN dimensions (reference src/paser/dataSource/dwn.mat)
     net = synthetic_network(nx=63, nu=114, nd=88, ne=17, seed=42)

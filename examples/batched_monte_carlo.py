@@ -2,12 +2,11 @@
 
 Evaluates one SMPC controller over B perturbed initial conditions and
 per-instance demand realisations SIMULTANEOUSLY: each time step runs
-ONE batched device solve (vmapped APG / grid-batched fused Pallas
-kernel) for all instances, then every instance's plant advances
-independently.  This is the "batched receding-horizon closed-loop
-runs" scale axis — the reference (one GPU, one instance per process,
-src/main.cu:34-68) has no counterpart; on TPU it is the main per-chip
-throughput lever (~5-6x measured solves/s at Barcelona scale).
+ONE batched device solve (vmapped XLA solve) for all instances, then
+every instance's plant advances independently.  This is the "batched
+receding-horizon closed-loop runs" scale axis — the reference (one GPU,
+one instance per process, src/main.cu:34-68) has no counterpart; it is
+the main per-device throughput lever.
 
 Run:
     python examples/batched_monte_carlo.py [--platform cpu]
@@ -25,17 +24,17 @@ def main():
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--iterations", type=int, default=150)
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args()
     if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+        from rapidnet_jax.utils.platform import use_platform
+        use_platform(args.platform)
 
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.solver.batch import BatchedSmpcController
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.solver.batch import BatchedSmpcController
 
     nx, nu, nd, ne, N = 10, 18, 12, 4, 12
     net = synthetic_network(nx=nx, nu=nu, nd=nd, ne=ne, seed=1)

@@ -22,14 +22,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=DEFAULT)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args()
 
     if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+        from rapidnet_jax.utils.platform import use_platform
+        use_platform(args.platform)
 
-    from rapidnet_tpu import SmpcController
+    from rapidnet_jax import SmpcController
 
     ctrl = SmpcController(args.config)
     for t in range(args.steps):

@@ -19,27 +19,27 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--inp", default=None, help="EPANET .inp file")
     ap.add_argument("--out", default="/tmp/dwn_export")
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args()
 
     if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+        from rapidnet_jax.utils.platform import use_platform
+        use_platform(args.platform)
 
     import numpy as np
 
-    from rapidnet_tpu.io import writers
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.solver.controller import SmpcController
-    from rapidnet_tpu.solver.tuning import auto_tune
+    from rapidnet_jax.io import writers
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.solver.controller import SmpcController
+    from rapidnet_jax.solver.tuning import auto_tune
 
     if args.inp:
-        from rapidnet_tpu.io.epanet import parse_epanet
+        from rapidnet_jax.io.epanet import parse_epanet
         net = parse_epanet(args.inp)
     else:
-        from rapidnet_tpu.model.network import synthetic_network
+        from rapidnet_jax.model.network import synthetic_network
         net = synthetic_network(nx=3, nu=6, nd=4, ne=2, seed=1)
 
     nx, nu, nd = net.nx, net.nu, net.nd

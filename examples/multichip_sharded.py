@@ -3,17 +3,14 @@
 The scenario (fan-layout slot) axis is sharded with ``shard_map`` over
 a 1-D ``jax.sharding.Mesh``; the non-branching tail of both tree sweeps
 is shard-local, the branching-prefix child->parent reductions and the
-global prox norms ride ICI collectives (parallel/sharding.py).
+global prox norms are collectives (parallel/sharding.py).
 
-Runs anywhere: with no TPU pod this demonstrates on a virtual 8-device
-CPU mesh.
-
-Run:
-    python examples/multichip_sharded.py [--devices 8]
+Run on N GPUs, or rehearse on N virtual CPU devices:
+    python examples/multichip_sharded.py [--devices 4]
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python examples/multichip_sharded.py [--devices 8]
 """
 
-import os
-import sys
 import argparse
 
 
@@ -24,28 +21,15 @@ def main():
     args = ap.parse_args()
 
     import jax
-
-    if os.environ.get("RAPIDNET_EXAMPLE_CPU_MESH") == "1":
-        # re-exec'd child: force CPU BEFORE any device query so the
-        # xla_force_host_platform_device_count flag takes effect
-        jax.config.update("jax_platforms", "cpu")
-    elif len(jax.devices()) < args.devices:
-        # not enough real devices: re-exec onto a virtual CPU mesh
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "") +
-            f" --xla_force_host_platform_device_count={args.devices}")
-        os.environ["RAPIDNET_EXAMPLE_CPU_MESH"] = "1"
-        os.execv(sys.executable, [sys.executable] + sys.argv)
-
     import numpy as np
 
-    from rapidnet_tpu.engine.engine import XS_UPPER, Engine
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.parallel import sharding
-    from rapidnet_tpu.solver.controller import _factor_arrays, _step_arrays
+    from rapidnet_jax.engine.engine import XS_UPPER, Engine
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.parallel import sharding
+    from rapidnet_jax.solver.controller import _factor_arrays, _step_arrays
 
     D = args.devices
     net = synthetic_network(nx=16, nu=30, nd=20, ne=5, seed=3)

@@ -28,13 +28,13 @@ DS = "/root/reference/src/paser/dataSource"
 
 
 def run_dwn(steps: int, iters: int, start_hour: int):
-    from rapidnet_tpu.io.matio import (load_dwn_forecaster,
+    from rapidnet_jax.io.matio import (load_dwn_forecaster,
                                        load_dwn_network)
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.solver.controller import SmpcController
 
-    from rapidnet_tpu.solver.tuning import auto_tune
+    from rapidnet_jax.solver.tuning import auto_tune
 
     net = load_dwn_network(DS + "/dwn.mat")
     # units: volumes m^3, controls/demands m^3/s; the .mat's B/Gd
@@ -54,8 +54,8 @@ def run_dwn(steps: int, iters: int, start_hour: int):
 
 
 def run_barcelona(steps: int, iters: int):
-    from rapidnet_tpu.io.datasource import load_barcelona_problem
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.io.datasource import load_barcelona_problem
+    from rapidnet_jax.solver.controller import SmpcController
 
     cfg, net, tree, fc = load_barcelona_problem(
         max_iterations=iters)
@@ -70,11 +70,11 @@ def main(argv=None) -> int:
     ap.add_argument("--iterations", type=int, default=200)
     ap.add_argument("--start-hour", type=int, default=3000,
                     help="dwn: hour of the year to start at")
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = ap.parse_args(argv)
     if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+        from rapidnet_jax.utils.platform import use_platform
+        use_platform(args.platform)
 
     if args.problem == "dwn":
         ctrl = run_dwn(args.steps, args.iterations, args.start_hour)

@@ -12,11 +12,11 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 
-from rapidnet_tpu.model.config import SmpcConfig
-from rapidnet_tpu.model.forecaster import JsonForecaster
-from rapidnet_tpu.model.network import DwnNetwork
-from rapidnet_tpu.model.scenario_tree import ScenarioTree
-from rapidnet_tpu.solver.controller import SmpcController
+from rapidnet_jax.model.config import SmpcConfig
+from rapidnet_jax.model.forecaster import JsonForecaster
+from rapidnet_jax.model.network import DwnNetwork
+from rapidnet_jax.model.scenario_tree import ScenarioTree
+from rapidnet_jax.solver.controller import SmpcController
 
 F = "/root/reference/src/test/testDataFiles/"
 STEPS, ITERS = 4, 100
@@ -28,7 +28,7 @@ def main() -> None:
     ctrl = SmpcController(
         cfg, network=DwnNetwork.from_json(F + "network.json"),
         tree=ScenarioTree.from_json(F + "scenarioTree.json"),
-        forecaster=JsonForecaster(F + "forecastor.json"), backend="xla")
+        forecaster=JsonForecaster(F + "forecastor.json"))
     log = ctrl.closed_loop(steps=STEPS)
     out = {"config": "controllerConfig.json", "max_iterations": ITERS,
            "steps": STEPS, "backend": "xla",

@@ -12,7 +12,7 @@ the synthetic remainder.
 import numpy as np
 import pytest
 
-from rapidnet_tpu.io import datasource as ds
+from rapidnet_jax.io import datasource as ds
 
 requires_ds = pytest.mark.skipif(not ds.available(),
                                  reason="reference dataSource unavailable")
@@ -51,7 +51,7 @@ def test_reconstructed_nullspace_geometry_is_exact():
 def test_barcelona_problem_factor_step_real_data():
     """The offline factor step runs on the real cost/preconditioner/
     tree data and produces finite, well-conditioned factors."""
-    from rapidnet_tpu.engine.engine import Engine
+    from rapidnet_jax.engine.engine import Engine
 
     cfg, net, tree, fc = ds.load_barcelona_problem(max_iterations=10)
     assert (tree.N, tree.ns, tree.n_nodes) == (24, 6, 136)
@@ -73,7 +73,7 @@ def test_barcelona_closed_loop_short():
     src/Engine.cu:447-448 + src/SmpcController.cu:1649 — with the real
     Barcelona preconditioner, g in [0.005, 1.5], that admits controls
     25% above umax; see solve_step.root_control_bounds)."""
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.solver.controller import SmpcController
 
     cfg, net, tree, fc = ds.load_barcelona_problem(max_iterations=60)
     ctrl = SmpcController(cfg, network=net, tree=tree, forecaster=fc)

@@ -8,14 +8,14 @@ import jax
 import numpy as np
 import pytest
 
-from rapidnet_tpu.engine.engine import XS_UPPER, Engine
-from rapidnet_tpu.model.config import synthetic_config
-from rapidnet_tpu.model.forecaster import synthetic_forecaster
-from rapidnet_tpu.model.network import synthetic_network
-from rapidnet_tpu.model.scenario_tree import generate_tree
-from rapidnet_tpu.solver import apg as apg_mod
-from rapidnet_tpu.solver.batch import BatchedSmpcController
-from rapidnet_tpu.solver.controller import (SmpcController, _factor_arrays,
+from rapidnet_jax.engine.engine import XS_UPPER, Engine
+from rapidnet_jax.model.config import synthetic_config
+from rapidnet_jax.model.forecaster import synthetic_forecaster
+from rapidnet_jax.model.network import synthetic_network
+from rapidnet_jax.model.scenario_tree import generate_tree
+from rapidnet_jax.solver import apg as apg_mod
+from rapidnet_jax.solver.batch import BatchedSmpcController
+from rapidnet_jax.solver.controller import (SmpcController, _factor_arrays,
                                             _step_arrays)
 
 B = 3
@@ -63,19 +63,6 @@ def test_batched_xla_matches_per_instance(problem):
             np.asarray(out_1["primal_infeasibility"]))
 
 
-def test_batched_pallas_matches_per_instance(problem):
-    from rapidnet_tpu.ops import pallas_apg
-    kw = {k: v for k, v in problem["kw"].items() if k != "prefix_stages"}
-    single = pallas_apg.make_apg_pallas(problem["fa"], **kw)
-    batched = pallas_apg.make_apg_pallas_batch(problem["fa"], **kw)
-    out_b = batched(_stack(problem["steps"]))
-    for b, step in enumerate(problem["steps"]):
-        out_1 = single(step)
-        np.testing.assert_allclose(np.asarray(out_b["control"])[b],
-                                   np.asarray(out_1["control"]),
-                                   rtol=1e-6, atol=1e-6)
-
-
 def test_batched_closed_loop_matches_sequential(problem):
     cfg, net, tree = problem["cfg"], problem["net"], problem["tree"]
     x0s = problem["x0s"]
@@ -83,8 +70,7 @@ def test_batched_closed_loop_matches_sequential(problem):
     def fresh_fc():
         return synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=6, seed=3)
 
-    bctrl = BatchedSmpcController(cfg, net, tree, fresh_fc(), x0s,
-                                  backend="xla")
+    bctrl = BatchedSmpcController(cfg, net, tree, fresh_fc(), x0s)
     blog = bctrl.closed_loop(3)
 
     for b in range(B):
@@ -95,7 +81,7 @@ def test_batched_closed_loop_matches_sequential(problem):
             cfg_b = copy.deepcopy(cfg)
             cfg_b.set_current_state(x0s[b])
         ctrl = SmpcController(cfg_b, network=net, tree=tree,
-                              forecaster=fresh_fc(), backend="xla")
+                              forecaster=fresh_fc())
         log = ctrl.closed_loop(3)
         for t in range(3):
             np.testing.assert_allclose(
@@ -115,7 +101,7 @@ def test_batched_warm_start_runs(problem):
     cfg, net, tree = problem["cfg"], problem["net"], problem["tree"]
     fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=6, seed=3)
     bctrl = BatchedSmpcController(cfg, net, tree, fc, problem["x0s"],
-                                  backend="xla", warm_start=True)
+                                  warm_start=True)
     log = bctrl.closed_loop(2)
     assert log["controls"].shape == (2, B, 7)
     assert np.all(np.isfinite(log["controls"]))
@@ -157,11 +143,10 @@ def test_batched_closed_loop_shared_forecaster_fast_path(problem):
     def fc():
         return synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=6, seed=3)
 
-    shared = BatchedSmpcController(cfg, net, tree, fc(), x0s,
-                                   backend="xla")
+    shared = BatchedSmpcController(cfg, net, tree, fc(), x0s)
     assert shared._shared_forecast
     per = BatchedSmpcController(cfg, net, tree, [fc() for _ in range(B)],
-                                x0s, backend="xla")
+                                x0s)
     assert not per._shared_forecast
     log_a = shared.closed_loop(3)
     log_b = per.closed_loop(3)
@@ -173,7 +158,7 @@ def test_batched_closed_loop_shared_forecaster_fast_path(problem):
 
 def test_batched_closed_loop_2d_mesh_matches_unsharded(problem):
     """BatchedSmpcController on a (batch, scen) 2-D mesh == unsharded."""
-    from rapidnet_tpu.parallel import make_mesh_2d
+    from rapidnet_jax.parallel import make_mesh_2d
     cfg, net, tree = problem["cfg"], problem["net"], problem["tree"]
     # ns=4 scenarios, B=4 instances -> (2, 4) mesh on 8 virtual devices
     x0s = np.vstack([problem["x0s"], problem["x0s"][:1]])
@@ -182,8 +167,7 @@ def test_batched_closed_loop_2d_mesh_matches_unsharded(problem):
     def fc():
         return synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=6, seed=3)
 
-    ref = BatchedSmpcController(cfg, net, tree, fc(), x0s,
-                                backend="xla").closed_loop(3)
+    ref = BatchedSmpcController(cfg, net, tree, fc(), x0s).closed_loop(3)
     sh = BatchedSmpcController(cfg, net, tree, fc(), x0s,
                                mesh=make_mesh_2d(2, 4)).closed_loop(3)
     np.testing.assert_allclose(sh["controls"], ref["controls"],
@@ -195,7 +179,7 @@ def test_batched_closed_loop_2d_mesh_matches_unsharded(problem):
 def test_stage_scan_path_matches_cumsum_path(problem, monkeypatch):
     """The large-ns sequential-scan sweeps (SCAN_MIN_NS) produce the
     same solve as the cumsum sweeps."""
-    from rapidnet_tpu.solver import solve_step as ss
+    from rapidnet_jax.solver import solve_step as ss
     kw = problem["kw"]
     step = problem["steps"][0]
 
@@ -220,7 +204,7 @@ def test_stage_scan_path_matches_cumsum_path(problem, monkeypatch):
 def test_batched_quasi_newton_matches_per_instance(problem, algorithm):
     """vmapped FBE/NAMA solves track standalone solves (line searches
     run in masked lockstep under vmap -> f32-level trajectory drift)."""
-    from rapidnet_tpu.solver import quasi_newton
+    from rapidnet_jax.solver import quasi_newton
     kw = dict({k: v for k, v in problem["kw"].items()
                if k != "max_iterations"},
               max_iterations=15, lbfgs_buffer_size=4,
@@ -261,13 +245,12 @@ def test_batched_closed_loop_quasi_newton_matches_sequential(problem,
     # --- identical lanes == sequential controller ---
     x0 = problem["x0s"][0]
     same = np.tile(x0, (B, 1))
-    bctrl = BatchedSmpcController(cfg, net, tree, fresh_fc(), same,
-                                  backend="xla")
+    bctrl = BatchedSmpcController(cfg, net, tree, fresh_fc(), same)
     blog = bctrl.closed_loop(3)
     cfg_b = copy.deepcopy(cfg)
     cfg_b.set_current_state(x0)
     ctrl = SmpcController(cfg_b, network=net, tree=tree,
-                          forecaster=fresh_fc(), backend="xla")
+                          forecaster=fresh_fc())
     log = ctrl.closed_loop(3)
     for t in range(3):
         # lanes are identical data in one program -> bitwise equal
@@ -285,7 +268,7 @@ def test_batched_closed_loop_quasi_newton_matches_sequential(problem,
 
     # --- distinct lanes: finite, in-bounds, per-lane KPIs ---
     bctrl2 = BatchedSmpcController(cfg, net, tree, fresh_fc(),
-                                   problem["x0s"], backend="xla")
+                                   problem["x0s"])
     blog2 = bctrl2.closed_loop(2)
     assert blog2["controls"].shape == (2, B, 7)
     assert np.all(np.isfinite(blog2["controls"]))
@@ -295,7 +278,7 @@ def test_batched_closed_loop_quasi_newton_matches_sequential(problem,
 def test_quasi_newton_warm_start_and_tolerance(problem):
     """Warm-started FBE with tolerance terminates in fewer iterations
     than a cold start and lands at the same control."""
-    from rapidnet_tpu.solver import quasi_newton
+    from rapidnet_jax.solver import quasi_newton
     kw = dict({k: v for k, v in problem["kw"].items()
                if k != "max_iterations"},
               max_iterations=120, lbfgs_buffer_size=4,
@@ -318,53 +301,8 @@ def test_batched_controller_tolerance_early_exit(problem):
     cfg, net, tree = problem["cfg"], problem["net"], problem["tree"]
     fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=6, seed=3)
     bctrl = BatchedSmpcController(cfg, net, tree, fc, problem["x0s"],
-                                  backend="xla", tolerance=1e-1)
+                                  tolerance=1e-1)
     bctrl.control_action(0)
     iters = np.asarray(bctrl._last["iterations"])
     assert np.all(iters <= cfg.max_iterations)
     assert np.all(iters >= 1)
-
-
-@pytest.mark.parametrize("algorithm", ["globalFbeAlgorithm",
-                                       "namaAlgorithm"])
-def test_batched_pallas_qn_matches_per_instance(problem, algorithm):
-    """vmap over the fused QN kernel == per-instance fused solves."""
-    from rapidnet_tpu.ops import pallas_qn
-    kw = {k: v for k, v in problem["kw"].items() if k != "prefix_stages"}
-    kw = dict(kw, algorithm=algorithm, lbfgs_buffer_size=5,
-              max_iterations=6, interpret=True)
-    single = pallas_qn.make_qn_pallas(problem["fa"], **kw)
-    batched = pallas_qn.make_qn_pallas_batch(problem["fa"], **kw)
-    out_b = batched(_stack(problem["steps"]))
-    for b, step in enumerate(problem["steps"]):
-        out_1 = single(step)
-        np.testing.assert_allclose(np.asarray(out_b["control"])[b],
-                                   np.asarray(out_1["control"]),
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(out_b["tau"])[b],
-                                   np.asarray(out_1["tau"]),
-                                   rtol=1e-6, atol=1e-7)
-
-
-@pytest.mark.parametrize("algorithm", ["globalFbeAlgorithm",
-                                       "namaAlgorithm"])
-def test_batched_controller_pallas_qn(problem, algorithm):
-    """BatchedSmpcController backend='pallas' dispatches the fused QN
-    kernel and tracks the XLA batched controller inside the
-    trajectory-agreement horizon."""
-    import copy as _copy
-    cfg = _copy.deepcopy(problem["cfg"])
-    cfg.algorithm = algorithm
-    cfg.max_iterations = 6
-    ctrls = {}
-    for backend in ("xla", "pallas"):
-        fc = _copy.deepcopy(problem["fc"])
-        c = BatchedSmpcController(cfg, problem["net"], problem["tree"],
-                                  fc, problem["x0s"], backend=backend)
-        u = c.control_action(0)
-        assert u.shape == (B, problem["net"].nu)
-        ctrls[backend] = u
-    assert ctrls["pallas"].shape == ctrls["xla"].shape
-    np.testing.assert_allclose(
-        ctrls["pallas"], ctrls["xla"], rtol=1e-3,
-        atol=1e-3 * max(np.abs(ctrls["xla"]).max(), 1.0))

@@ -1,13 +1,15 @@
 """The benchmark harnesses stay runnable (CPU, tiny budgets).
 
-bench.py and bench_ladder.py are the driver-facing measurement
-surfaces; these smoke tests keep them from rotting between TPU runs.
+bench.py and bench_ladder.py are the device measurement scripts; these
+smoke tests keep them from rotting between GPU runs.
 """
 
 import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,13 +26,17 @@ def test_bench_ladder_smoke(tmp_path):
     names = [r["config"] for r in data["rows"]]
     assert any("1_toy" in n for n in names)
     assert any("5_1024scenario" in n for n in names)
-    # rows either measured or carry an explicit reason (e.g. the
-    # opt-in fused config-5 row, or streaming rows on platforms
-    # without the kernels)
+    # every row is measured on the XLA path, and the file names the
+    # device it ran on
+    assert data["device"]["platform"] == "cpu"
+    assert data["device"]["device_count"] >= 1
     for r in data["rows"]:
-        assert r.get("solves_per_s", 0) > 0 or "error" in r, r
-    measured = [r for r in data["rows"] if "solves_per_s" in r]
-    assert len(measured) >= 6
+        assert r.get("solves_per_s", 0) > 0, r
+        assert r["path"] in ("xla", "xla+shard_map"), r
+    assert {"1_toy_deterministic_H8_cpu", "2_binary_tree_H12",
+            "3_barcelona_subset_100node_H24", "4_barcelona_556node_H24",
+            "4_barcelona_556node_H24_batch16", "5_1024scenario_H24",
+            "5_1024scenario_H24_shardmap_1dev"} <= set(names)
 
 
 def test_bench_measure_smoke(monkeypatch):
@@ -43,14 +49,14 @@ def test_bench_measure_smoke(monkeypatch):
     assert res["solves_per_s"] > 0
     assert res["batch_solves_per_s"] > 0
     assert res["tree_nodes"] == 556
-    assert "xla" in res["paths_ms"]
+    assert np.isfinite(res["final_infeasibility"])
     # one bench line per algorithm (reference dispatch parity,
     # src/SmpcController.cu:63-71)
     assert set(res["algo_solves_per_s"]) == {"apg", "fbe", "nama"}
     assert all(v > 0 for v in res["algo_solves_per_s"].values())
     # time-to-solution diagnostics: per-algorithm budget wall ms always
-    # present; stabilisation fields may be null (documented negative
-    # result, docs/performance.md)
+    # present; stabilisation fields may be null (an algorithm whose
+    # control never stabilises at the anchor within the budget ladder)
     tts = res["time_to_solution"]
     for algo in ("apg", "fbe", "nama"):
         assert tts[algo]["cold_budget_ms"] > 0
@@ -60,12 +66,13 @@ def test_bench_measure_smoke(monkeypatch):
 def test_ladder_only_merge_mode(tmp_path):
     """--only measures a row subset and merges into the existing out
     file: other rows/fields preserved, measured rows never clobbered
-    by error rows, merged rows stamped with their session transport."""
+    by error rows, merged rows stamped with their own device."""
     out = tmp_path / "ladder.json"
     prev = {
-        "backend": "tpu", "transport_ms": 25.0, "device": "fake",
+        "device": {"platform": "gpu", "device_kind": "fake",
+                   "device_count": 1, "gpu": "fake, 1.00 W"},
         "rows": [
-            {"config": "5_1024scenario_H24_stream", "p50_ms": 274.9,
+            {"config": "5_1024scenario_H24", "p50_ms": 274.9,
              "solves_per_s": 3.64, "batch": 1},
             {"config": "2_binary_tree_H12", "p50_ms": 28.6,
              "solves_per_s": 34.9, "batch": 1},
@@ -82,44 +89,11 @@ def test_ladder_only_merge_mode(tmp_path):
     data = json.loads(out.read_text())
     by_cfg = {r["config"]: r for r in data["rows"]}
     # untouched row + file-level fields preserved
-    assert by_cfg["5_1024scenario_H24_stream"]["p50_ms"] == 274.9
-    assert data["transport_ms"] == 25.0
+    assert by_cfg["5_1024scenario_H24"]["p50_ms"] == 274.9
+    assert data["device"] == prev["device"]
     assert "device_scaling" in data
     # merged row re-measured (tiny CPU budget -> much faster than the
-    # fake 28.6 ms) and stamped with its own transport
+    # fake 28.6 ms) and stamped with the device it ran on
     row = by_cfg["2_binary_tree_H12"]
-    assert row["p50_ms"] != 28.6 and "transport_ms" in row
-
-
-def test_merge_qn_ladder_tool(tmp_path):
-    """tools/merge_qn_ladder.py converts bench_r4_qn summary rows into
-    ladder rows and merges them without touching existing rows."""
-    ladder = tmp_path / "LADDER.json"
-    ladder.write_text(json.dumps({
-        "rows": [{"config": "5_1024scenario_H24_stream",
-                  "p50_ms": 274.9, "solves_per_s": 3.64}]}))
-    log = tmp_path / "qn.log"
-    log.write_text("\n".join([
-        json.dumps({"algo": "fbe", "path": "stream", "p50_ms": 400.0,
-                    "ctrl_rel_dev_vs_xla": 0.001}),
-        json.dumps({"summary": True, "nodes": 20809,
-                    "scenarios": 1024, "iters": 500, "rows": [
-                        {"algo": "fbe", "path": "stream",
-                         "p50_ms": 400.0, "ctrl_rel_dev_vs_xla": 0.001},
-                        {"algo": "fbe", "path": "xla",
-                         "p50_ms": 900.0, "ctrl_rel_dev_vs_xla": 0.0},
-                    ]}),
-    ]))
-    cp = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", "merge_qn_ladder.py"),
-         "--log", str(log), "--ladder", str(ladder)],
-        capture_output=True, text=True, timeout=120, cwd=ROOT)
-    assert cp.returncode == 0, cp.stderr[-2000:]
-    data = json.loads(ladder.read_text())
-    by_cfg = {r["config"]: r for r in data["rows"]}
-    assert by_cfg["5_1024scenario_H24_stream"]["p50_ms"] == 274.9
-    assert by_cfg["5_1024scenario_H24_fbe_stream"]["p50_ms"] == 400.0
-    assert by_cfg["5_1024scenario_H24_fbe_stream"][
-        "path"] == "pallas-stream-qn"
-    assert by_cfg["5_1024scenario_H24_fbe_xla"]["solves_per_s"] == \
-        round(1e3 / 900.0, 3)
+    assert row["p50_ms"] != 28.6
+    assert row["device"]["platform"] == "cpu"

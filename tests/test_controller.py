@@ -10,7 +10,7 @@ from tests.conftest import fixture_path, requires_reference
 
 @requires_reference
 def test_closed_loop_reference_problem(ref_problem, tmp_path):
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.solver.controller import SmpcController
     cfg = copy.deepcopy(ref_problem["config"])
     cfg.max_iterations = 80   # short budget keeps the test fast
     ctrl = SmpcController(cfg, network=ref_problem["network"],
@@ -36,11 +36,11 @@ def test_closed_loop_reference_problem(ref_problem, tmp_path):
 
 def test_closed_loop_synthetic():
     """End-to-end on a generated problem (no reference files needed)."""
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.solver.controller import SmpcController
 
     net = synthetic_network(nx=5, nu=8, nd=3, ne=2, seed=7)
     tree = generate_tree(N=8, branching=[2, 2], nd=3, nu=8, seed=7)
@@ -54,66 +54,16 @@ def test_closed_loop_synthetic():
     assert np.isfinite(ctrl.config.current_x).all()
 
 
-@requires_reference
-def test_closed_loop_pallas_backend_matches_xla(ref_problem):
-    """backend='pallas' (fused whole-solve kernel, interpret on CPU)
-    produces the same closed-loop controls as the XLA path."""
-    from rapidnet_tpu.solver.controller import SmpcController
-
-    logs = []
-    for backend in ("xla", "pallas"):
-        cfg = copy.deepcopy(ref_problem["config"])
-        cfg.max_iterations = 40
-        fc = copy.deepcopy(ref_problem["forecaster"])
-        ctrl = SmpcController(cfg, network=ref_problem["network"],
-                              tree=ref_problem["tree"], forecaster=fc,
-                              backend=backend)
-        log = ctrl.closed_loop(steps=2)
-        logs.append(log)
-    for t in range(2):
-        a = np.asarray(logs[0][f"control{t}"])
-        b = np.asarray(logs[1][f"control{t}"])
-        np.testing.assert_allclose(a, b, rtol=1e-4,
-                                   atol=1e-4 * max(np.abs(a).max(), 1.0))
-
-
-@requires_reference
-def test_pallas_backend_tolerance_early_exit(ref_problem):
-    """Round 5: the whole-solve Pallas kernels terminate in-kernel
-    when tolerance is set (backend='pallas' no longer rejects it);
-    the fixed-budget streaming backend still does."""
-    from rapidnet_tpu.solver.controller import SmpcController
-
-    def build(backend, tol):
-        cfg = copy.deepcopy(ref_problem["config"])
-        cfg.max_iterations = 80
-        return SmpcController(cfg, network=ref_problem["network"],
-                              tree=ref_problem["tree"],
-                              forecaster=ref_problem["forecaster"],
-                              backend=backend, tolerance=tol)
-
-    tol = 50.0
-    ref = build("xla", tol)
-    got = build("pallas", tol)
-    a = ref.control_action(0)
-    b = got.control_action(0)
-    assert int(got._last["iterations"]) == int(ref._last["iterations"])
-    np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-3)
-    with pytest.raises(ValueError, match="early termination"):
-        build("stream", tol).initialise()
-
-
 def test_closed_loop_no_buffer_leaks(ref_problem):
-    """TPU analog of the reference's cudaMemGetInfo leak invariant
+    """Device analog of the reference's cudaMemGetInfo leak invariant
     (src/SmpcController.cu:1612-1624): live device-buffer census stays
     flat across warm solves."""
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.solver.controller import SmpcController
     cfg = copy.deepcopy(ref_problem["config"])
     cfg.max_iterations = 60
     ctrl = SmpcController(cfg, network=ref_problem["network"],
                           tree=ref_problem["tree"],
-                          forecaster=ref_problem["forecaster"],
-                          backend="xla")
+                          forecaster=ref_problem["forecaster"])
     log = ctrl.closed_loop(3)
     assert "memoryLeakWarning" not in log, log["memoryLeakWarning"]
 
@@ -126,8 +76,8 @@ def test_closed_loop_quasi_newton_configs(config_name, ref_problem,
     """Closed loop under the reference's FBE/NAMA controller configs
     (the reference runs three suites per algorithm,
     src/test/Testing.cu:482-595)."""
-    from rapidnet_tpu.model.config import SmpcConfig
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.model.config import SmpcConfig
+    from rapidnet_jax.solver.controller import SmpcController
     cfg = SmpcConfig.from_json(fixture_path(config_name))
     cfg.max_iterations = 30
     ctrl = SmpcController(cfg, network=ref_problem["network"],
@@ -138,34 +88,6 @@ def test_closed_loop_quasi_newton_configs(config_name, ref_problem,
         u = np.asarray(log[f"control{t}"])
         assert u.shape == (6,) and np.isfinite(u).all()
     assert np.isfinite(log["economicKpi"])
-
-
-@requires_reference
-@pytest.mark.parametrize("config_name", ["controllerFbeConfig.json",
-                                         "controllerNamaConfig.json"])
-def test_closed_loop_pallas_qn_backend_matches_xla(config_name,
-                                                   ref_problem):
-    """backend='pallas' (fused FBE/NAMA kernel, interpret on CPU)
-    matches the XLA closed loop.  Budget kept inside the measured
-    trajectory-agreement horizon (see tests/test_pallas_qn.py): beyond
-    it the chaotic line search forks the two valid trajectories."""
-    from rapidnet_tpu.model.config import SmpcConfig
-    from rapidnet_tpu.solver.controller import SmpcController
-
-    logs = []
-    for backend in ("xla", "pallas"):
-        cfg = SmpcConfig.from_json(fixture_path(config_name))
-        cfg.max_iterations = 6
-        fc = copy.deepcopy(ref_problem["forecaster"])
-        ctrl = SmpcController(cfg, network=ref_problem["network"],
-                              tree=ref_problem["tree"], forecaster=fc,
-                              backend=backend)
-        logs.append(ctrl.closed_loop(steps=2))
-    for t in range(2):
-        a = np.asarray(logs[0][f"control{t}"])
-        b = np.asarray(logs[1][f"control{t}"])
-        np.testing.assert_allclose(a, b, rtol=1e-3,
-                                   atol=1e-3 * max(np.abs(a).max(), 1.0))
 
 
 @requires_reference
@@ -180,7 +102,7 @@ def test_closed_loop_golden_trajectory(ref_problem):
     import json
     import os
 
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.solver.controller import SmpcController
     gpath = os.path.join(os.path.dirname(__file__), "golden",
                          "closed_loop_apg.json")
     with open(gpath) as f:
@@ -189,8 +111,7 @@ def test_closed_loop_golden_trajectory(ref_problem):
     cfg.max_iterations = golden["max_iterations"]
     fc = copy.deepcopy(ref_problem["forecaster"])
     ctrl = SmpcController(cfg, network=ref_problem["network"],
-                          tree=ref_problem["tree"], forecaster=fc,
-                          backend="xla")
+                          tree=ref_problem["tree"], forecaster=fc)
     log = ctrl.closed_loop(steps=golden["steps"])
     for t in range(golden["steps"]):
         u = np.asarray(log[f"control{t}"], np.float32)

@@ -88,7 +88,7 @@ def test_config_parse(ref_problem):
 
 @requires_reference
 def test_nullspace_properties(ref_problem):
-    from rapidnet_tpu.engine.nullspace import (nullspace_elimination,
+    from rapidnet_jax.engine.nullspace import (nullspace_elimination,
                                                validate_nullspace)
     net = ref_problem["network"]
     L, Lhat = nullspace_elimination(net.matE, net.matEd)
@@ -105,7 +105,7 @@ def test_nullspace_properties(ref_problem):
 
 
 def test_synthetic_tree_generator():
-    from rapidnet_tpu.model.scenario_tree import generate_tree
+    from rapidnet_jax.model.scenario_tree import generate_tree
     tree = generate_tree(N=12, branching=[2, 2, 2], nd=4, nu=6, seed=1)
     assert tree.ns == 8
     assert tree.n_nodes == 1 + 2 + 4 + 8 * 9
@@ -118,7 +118,7 @@ def test_synthetic_tree_generator():
 
 def test_tree_from_samples():
     """Forecaster-driven scenario generation (stagewise clustering)."""
-    from rapidnet_tpu.model.scenario_tree import generate_tree_from_samples
+    from rapidnet_jax.model.scenario_tree import generate_tree_from_samples
     rng = np.random.default_rng(0)
     d = np.cumsum(rng.standard_normal((100, 10, 4)) * 0.05,
                   axis=1).astype(np.float32)
@@ -134,8 +134,8 @@ def test_tree_from_samples():
 
 
 def test_synthetic_network_wellposed():
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.engine.nullspace import (nullspace_elimination,
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.engine.nullspace import (nullspace_elimination,
                                                validate_nullspace)
     net = synthetic_network(nx=10, nu=20, nd=6, ne=4, seed=3)
     net.validate()
@@ -146,7 +146,7 @@ def test_synthetic_network_wellposed():
 def test_prefix_agg_factored_form():
     """C_s == Bp_s @ Cp_s exactly (the sharded solve's factored
     child->parent aggregation over distinct parents)."""
-    from rapidnet_tpu.model.scenario_tree import generate_tree
+    from rapidnet_jax.model.scenario_tree import generate_tree
     tree = generate_tree(N=8, branching=[3, 2, 2], nd=4, nu=6, seed=5)
     assert set(tree.prefix_Cp) == set(tree.prefix_agg)
     for s, C in tree.prefix_agg.items():

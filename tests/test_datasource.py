@@ -13,7 +13,7 @@ requires_ds = pytest.mark.skipif(not os.path.isdir(DS),
 
 @requires_ds
 def test_scenario_tree_32_loads():
-    from rapidnet_tpu.model.scenario_tree import ScenarioTree
+    from rapidnet_jax.model.scenario_tree import ScenarioTree
     t = ScenarioTree.from_json(os.path.join(DS, "scenarioTree32.json"))
     assert (t.N, t.ns, t.n_nodes) == (24, 6, 136)
     assert t.err_demand.shape == (t.n_nodes, t.dim_demand)
@@ -24,10 +24,10 @@ def test_scenario_tree_32_loads():
 @requires_ds
 def test_scenario_tree_65_loads_and_factors():
     """667-node tree: load + run the offline factor step end-to-end."""
-    from rapidnet_tpu.engine.engine import Engine
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import ScenarioTree
+    from rapidnet_jax.engine.engine import Engine
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import ScenarioTree
 
     t = ScenarioTree.from_json(os.path.join(DS, "scenarioTree65.json"))
     assert (t.N, t.ns, t.n_nodes) == (24, 30, 667)
@@ -41,7 +41,7 @@ def test_scenario_tree_65_loads_and_factors():
 
 @requires_ds
 def test_controller_config_32_parses():
-    from rapidnet_tpu.model.config import SmpcConfig
+    from rapidnet_jax.model.config import SmpcConfig
     cfg = SmpcConfig.from_json(os.path.join(DS, "controllerConfig32.json"))
     assert cfg.N == 24
     assert cfg.max_iterations > 0
@@ -52,7 +52,7 @@ def test_controller_config_32_parses():
 @requires_ds
 def test_germany2016_price_workbook():
     """Legacy-.xls reader (io/xls.py) on the shipped electricity prices."""
-    from rapidnet_tpu.io.xls import load_hourly_prices, read_xls_numbers
+    from rapidnet_jax.io.xls import load_hourly_prices, read_xls_numbers
     path = os.path.join(DS, "germany2016.xls")
     book = read_xls_numbers(path)
     assert "Price (EUR)" in book
@@ -66,8 +66,8 @@ def test_germany2016_price_workbook():
 @requires_ds
 def test_prices_drive_forecaster():
     """Real 2016 price data feeding the controller's forecaster."""
-    from rapidnet_tpu.io.xls import load_hourly_prices
-    from rapidnet_tpu.model.forecaster import ArrayForecaster
+    from rapidnet_jax.io.xls import load_hourly_prices
+    from rapidnet_jax.model.forecaster import ArrayForecaster
 
     prices = load_hourly_prices(os.path.join(DS, "germany2016.xls"))
     N, nd = 24, 4

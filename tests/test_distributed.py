@@ -51,7 +51,7 @@ def test_two_process_distributed_solve(tmp_path):
     import jax
 
     from tests._dist_worker import build_problem
-    from rapidnet_tpu.solver import apg as apg_mod
+    from rapidnet_jax.solver import apg as apg_mod
 
     fa, step, kw = build_problem()
     ref = jax.jit(apg_mod.make_apg(**kw))(fa, step)
@@ -65,7 +65,7 @@ def test_two_process_distributed_solve(tmp_path):
 
 
 def test_two_process_controller_mesh_closed_loop(tmp_path):
-    """The documented pod-slice recipe end-to-end: SmpcController with
+    """The documented multi-host recipe end-to-end: SmpcController with
     mesh= over 2 coordinator-connected processes (the staging helpers
     assemble each host's scenario block), compared against the
     single-process mesh closed loop (ADVICE r1: the controller mesh
@@ -93,8 +93,8 @@ def test_two_process_controller_mesh_closed_loop(tmp_path):
         assert code == 0, f"worker failed (rc={code}):\n{stderr[-2000:]}"
 
     # single-process reference: same controller over the local mesh
-    from rapidnet_tpu.parallel import make_mesh
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.parallel import make_mesh
+    from rapidnet_jax.solver.controller import SmpcController
     from tests._dist_worker import build_controller_problem
 
     cfg, net, tree, fc = build_controller_problem()
@@ -114,7 +114,7 @@ def test_two_process_controller_mesh_closed_loop(tmp_path):
 
 
 def test_two_process_2d_batch_scen_mesh(tmp_path):
-    """BASELINE config 5's batched pod-slice shape across real
+    """BASELINE config 5's batched multi-host shape across real
     processes: a 2-D (batch, scen) mesh over 2 coordinator-connected
     processes, staged by the generic per-device shard assembly
     (round 2 raised NotImplementedError here).  Controls must match
@@ -144,7 +144,7 @@ def test_two_process_2d_batch_scen_mesh(tmp_path):
     # unsharded batched reference (independent code path)
     import jax
 
-    from rapidnet_tpu.solver import apg as apg_mod
+    from rapidnet_jax.solver import apg as apg_mod
     from tests._dist_worker import build_batch2d_steps, build_problem
 
     fa, step, kw = build_problem()
@@ -157,12 +157,10 @@ def test_two_process_2d_batch_scen_mesh(tmp_path):
                                rtol=2e-4, atol=2e-4)
 
 
-def test_two_process_per_shard_stream_solve(tmp_path):
-    """The per-shard streaming Pallas path (interpret mode) across 2
-    real processes: distinct-parent psum + XLA root tail under
-    multi-controller staging, control parity vs the single-process
-    plain streaming solve (VERDICT r4 task 6)."""
-    out_path = str(tmp_path / "dist_stream.npz")
+def test_two_process_quasi_newton_solve(tmp_path):
+    """Scenario-sharded FBE across 2 real processes matches the
+    single-process single-device FBE solve."""
+    out_path = str(tmp_path / "dist_qn.npz")
     port = _free_port()
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items()
@@ -171,7 +169,7 @@ def test_two_process_per_shard_stream_solve(tmp_path):
     procs = [
         subprocess.Popen(
             [sys.executable, WORKER, str(pid), "2", str(port), out_path,
-             "stream"],
+             "qn"],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
         for pid in range(2)
@@ -184,20 +182,15 @@ def test_two_process_per_shard_stream_solve(tmp_path):
     for (stdout, stderr), code in zip(outs, codes):
         assert code == 0, f"worker failed (rc={code}):\n{stderr[-2000:]}"
 
-    # single-process reference: the plain single-device streaming solve
-    import jax  # noqa: F401
+    import jax
 
-    from rapidnet_tpu.ops.pallas_stream import make_apg_stream
-    from tests._dist_worker import build_problem
+    from rapidnet_jax.solver import quasi_newton
+    from tests._dist_worker import QN_KW, build_problem
 
     fa, step, kw = build_problem()
-    kw = {k: v for k, v in kw.items() if k != "prefix_stages"}
-    ref = make_apg_stream(fa, **kw)(step)
-
+    ref = jax.jit(quasi_newton.make_solver(**dict(kw, **QN_KW)))(fa, step)
     got = np.load(out_path)
-    np.testing.assert_allclose(got["control"],
-                               np.asarray(ref["control"]),
+    np.testing.assert_allclose(got["control"], np.asarray(ref["control"]),
                                rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(
-        got["infeas"], np.asarray(ref["primal_infeasibility"]),
-        rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got["tau"], np.asarray(ref["tau"]),
+                               rtol=1e-4, atol=1e-5)

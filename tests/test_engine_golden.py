@@ -13,7 +13,7 @@ row-major tensors are transposed before comparison.
 import numpy as np
 import pytest
 
-from rapidnet_tpu.io import jsonio
+from rapidnet_jax.io import jsonio
 from tests.conftest import fixture_path, requires_reference
 
 TOL = 1e-2
@@ -125,10 +125,10 @@ def test_near_singular_costw_raises():
     singularity; we also reject hopeless-in-f32 conditioning)."""
     import dataclasses
 
-    from rapidnet_tpu.engine.engine import Engine
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
+    from rapidnet_jax.engine.engine import Engine
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
 
     net = synthetic_network(nx=5, nu=8, nd=4, ne=2, seed=0)
     tree = generate_tree(N=6, branching=[2], nd=4, nu=8, seed=0)

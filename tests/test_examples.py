@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run(script, *argv, timeout=420):
     env = dict(os.environ)
-    # examples import rapidnet_tpu; make them independent of whether
+    # examples import rapidnet_jax; make them independent of whether
     # the editable install survived an environment reset
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     cp = subprocess.run(
@@ -65,7 +65,10 @@ def test_real_data_example():
     assert "network  kpi" in out
 
 
-def test_large_tree_streaming_example():
-    out = _run("large_tree_streaming.py", "--platform", "cpu",
-               "--scenarios", "8", "--iters", "15", "--steps", "2")
+@pytest.mark.parametrize("algorithm,devices", [
+    ("proximalAlgorithm", "0"), ("namaAlgorithm", "4")])
+def test_large_tree_example(algorithm, devices):
+    out = _run("large_tree.py", "--platform", "cpu", "--scenarios", "8",
+               "--iters", "15", "--steps", "2", "--algorithm", algorithm,
+               "--devices", devices)
     assert "economic KPI" in out

@@ -15,7 +15,7 @@ import zlib
 import numpy as np
 import pytest
 
-from rapidnet_tpu.io.matio import (load_dwn_forecaster, load_dwn_network,
+from rapidnet_jax.io.matio import (load_dwn_forecaster, load_dwn_network,
                                    read_mat)
 
 DWN_MAT = "/root/reference/src/paser/dataSource/dwn.mat"
@@ -53,7 +53,7 @@ def test_dwn_network_matches_reference_fixture_geometry():
     different flow units (m^3/s vs the JSON fixture's m^3/h):
     E (dimensionless junction incidence), xmax/xmin (volumes) and the
     safety level match exactly; flow bounds scale by 3600."""
-    from rapidnet_tpu.model.network import DwnNetwork
+    from rapidnet_jax.model.network import DwnNetwork
     fixture = "/root/reference/src/test/testDataFiles/network.json"
     if not os.path.isfile(fixture):
         pytest.skip("reference fixture not available")
@@ -71,10 +71,10 @@ def test_dwn_network_matches_reference_fixture_geometry():
 def test_real_year_forecaster_closed_loop():
     """A short closed loop over the REAL demand/price year runs and
     produces feasible controls on the mat-file network."""
-    from rapidnet_tpu.engine.engine import Engine
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.engine.engine import Engine
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.solver.controller import SmpcController
 
     net = load_dwn_network(DWN_MAT)
     # units: volumes m^3, controls/demands m^3/s; B/Gd already

@@ -12,7 +12,7 @@ from tests.conftest import fixture_path, requires_reference
 
 @pytest.fixture(scope="module")
 def native_lib():
-    from rapidnet_tpu.native import get_lib
+    from rapidnet_jax.native import get_lib
     lib = get_lib()
     if lib is None:
         pytest.skip("no C++ toolchain available")
@@ -21,7 +21,7 @@ def native_lib():
 
 @requires_reference
 def test_native_json_matches_stdlib(native_lib):
-    from rapidnet_tpu.native import jsonfast
+    from rapidnet_jax.native import jsonfast
     for name in ("network.json", "scenarioTree.json",
                  "controllerConfig.json"):
         path = fixture_path(name)
@@ -40,7 +40,7 @@ def test_native_json_matches_stdlib(native_lib):
 
 def test_native_json_speed(native_lib, tmp_path):
     """Native parser beats stdlib json on a MB-scale tree file."""
-    from rapidnet_tpu.native import jsonfast
+    from rapidnet_jax.native import jsonfast
     big = {"N": [24], "vals": np.random.default_rng(0)
            .standard_normal(400_000).round(6).tolist()}
     path = str(tmp_path / "big.json")
@@ -58,7 +58,7 @@ def test_native_json_speed(native_lib, tmp_path):
 
 def test_native_tree_prefix_agg(native_lib):
     """C++ prefix-aggregation builder == the per-slot Python definition."""
-    from rapidnet_tpu.model.scenario_tree import generate_tree
+    from rapidnet_jax.model.scenario_tree import generate_tree
     tree = generate_tree(N=10, branching=[3, 2, 2], nd=4, nu=6, seed=11)
     assert tree.prefix_agg, "tree should have branching prefix stages"
     for s, C in tree.prefix_agg.items():

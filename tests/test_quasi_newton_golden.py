@@ -9,17 +9,17 @@ import jax
 import numpy as np
 import pytest
 
-from rapidnet_tpu.engine.engine import XS_UPPER, Engine
-from rapidnet_tpu.io import jsonio
-from rapidnet_tpu.model.config import SmpcConfig
-from rapidnet_tpu.solver import quasi_newton as qn
-from rapidnet_tpu.solver import solve_step as ss
+from rapidnet_jax.engine.engine import XS_UPPER, Engine
+from rapidnet_jax.io import jsonio
+from rapidnet_jax.model.config import SmpcConfig
+from rapidnet_jax.solver import quasi_newton as qn
+from rapidnet_jax.solver import solve_step as ss
 from tests.conftest import fixture_path, requires_reference
 from tests.test_solver_golden import assert_close_ref
 
 
 def _setup(ref_problem, config_name):
-    from rapidnet_tpu.solver.controller import _factor_arrays, _step_arrays
+    from rapidnet_jax.solver.controller import _factor_arrays, _step_arrays
     cfg = SmpcConfig.from_json(fixture_path(config_name))
     net = ref_problem["network"]
     tree = ref_problem["tree"]

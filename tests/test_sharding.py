@@ -9,13 +9,13 @@ import jax
 import numpy as np
 import pytest
 
-from rapidnet_tpu.engine.engine import XS_UPPER, Engine
-from rapidnet_tpu.model.config import synthetic_config
-from rapidnet_tpu.model.forecaster import synthetic_forecaster
-from rapidnet_tpu.model.network import synthetic_network
-from rapidnet_tpu.model.scenario_tree import generate_tree
-from rapidnet_tpu.solver import apg as apg_mod
-from rapidnet_tpu.solver.controller import _factor_arrays, _step_arrays
+from rapidnet_jax.engine.engine import XS_UPPER, Engine
+from rapidnet_jax.model.config import synthetic_config
+from rapidnet_jax.model.forecaster import synthetic_forecaster
+from rapidnet_jax.model.network import synthetic_network
+from rapidnet_jax.model.scenario_tree import generate_tree
+from rapidnet_jax.solver import apg as apg_mod
+from rapidnet_jax.solver.controller import _factor_arrays, _step_arrays
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +48,7 @@ def _solver_kwargs(p):
 
 
 def test_sharded_apg_matches_single_device(problem):
-    from rapidnet_tpu.parallel import (make_mesh, make_sharded_apg,
+    from rapidnet_jax.parallel import (make_mesh, make_sharded_apg,
                                        shard_factor_arrays,
                                        shard_step_arrays)
     assert len(jax.devices()) >= 8, "conftest must force 8 CPU devices"
@@ -77,7 +77,7 @@ def test_sharded_apg_matches_single_device(problem):
 
 def test_sharded_apg_4_devices(problem):
     """Mesh sizes that do not equal the scenario count also work."""
-    from rapidnet_tpu.parallel import (make_mesh, make_sharded_apg,
+    from rapidnet_jax.parallel import (make_mesh, make_sharded_apg,
                                        shard_factor_arrays,
                                        shard_step_arrays)
     mesh = make_mesh(4)
@@ -96,11 +96,11 @@ def test_sharded_apg_4_devices(problem):
 @pytest.mark.parametrize("algorithm", ["globalFbeAlgorithm",
                                        "namaAlgorithm"])
 def test_sharded_quasi_newton_matches_single_device(problem, algorithm):
-    from rapidnet_tpu.parallel import (make_mesh,
+    from rapidnet_jax.parallel import (make_mesh,
                                        make_sharded_quasi_newton,
                                        shard_factor_arrays,
                                        shard_step_arrays)
-    from rapidnet_tpu.solver import quasi_newton
+    from rapidnet_jax.solver import quasi_newton
 
     kw = dict(_solver_kwargs(problem), max_iterations=15,
               lbfgs_buffer_size=4)
@@ -127,10 +127,38 @@ def test_sharded_quasi_newton_matches_single_device(problem, algorithm):
         rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_devices", [2, 4])
+@pytest.mark.parametrize("algorithm", ["globalFbeAlgorithm",
+                                       "namaAlgorithm"])
+def test_sharded_quasi_newton_small_meshes(problem, algorithm, n_devices):
+    """FBE/NAMA over 2- and 4-device meshes (the 4-GPU layout) equal the
+    single-device solve: control, L-BFGS line-search taus."""
+    from rapidnet_jax.parallel import (make_mesh,
+                                       make_sharded_quasi_newton,
+                                       shard_factor_arrays,
+                                       shard_step_arrays)
+    from rapidnet_jax.solver import quasi_newton
+
+    kw = dict(_solver_kwargs(problem), max_iterations=15,
+              lbfgs_buffer_size=4)
+    ref = jax.jit(quasi_newton.make_solver(algorithm=algorithm, **kw))(
+        problem["fa"], problem["step"])
+    mesh = make_mesh(n_devices)
+    out = make_sharded_quasi_newton(
+        mesh, problem["fa"], problem["step"], algorithm=algorithm, **kw)(
+        shard_factor_arrays(problem["fa"], mesh),
+        shard_step_arrays(problem["step"], mesh))
+    np.testing.assert_allclose(np.asarray(out["control"]),
+                               np.asarray(ref["control"]),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(np.asarray(out["tau"]),
+                               np.asarray(ref["tau"]), rtol=1e-4, atol=1e-5)
+
+
 def test_2d_mesh_batched_sharded_apg(problem):
     """dp x sp: (batch, scen) 2-D mesh matches per-instance solves."""
     import jax.numpy as jnp
-    from rapidnet_tpu.parallel import (make_mesh_2d, make_sharded_apg_batch,
+    from rapidnet_jax.parallel import (make_mesh_2d, make_sharded_apg_batch,
                                        shard_factor_arrays,
                                        shard_step_arrays_batch)
 
@@ -139,11 +167,11 @@ def test_2d_mesh_batched_sharded_apg(problem):
     x0 = problem["cfg"].current_x
     steps = []
     eng, cfg, fc = problem["eng"], problem["cfg"], None
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
     fc = synthetic_forecaster(N=10, nd=3, nu=7, sim_horizon=4, seed=11)
     fc.predict_demand(0)
     fc.predict_prices(0)
-    from rapidnet_tpu.solver.controller import _step_arrays
+    from rapidnet_jax.solver.controller import _step_arrays
     for b in range(B):
         xr = (x0 * (0.9 + 0.2 * rng.random(x0.shape))).astype(np.float32)
         steps.append(_step_arrays(eng.prepare_step(
@@ -174,12 +202,12 @@ def test_2d_mesh_batched_sharded_apg(problem):
 def test_controller_sharded_closed_loop(algorithm):
     """SmpcController(mesh=...) runs the closed loop sharded and matches
     the single-device controller."""
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.parallel import make_mesh
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.parallel import make_mesh
+    from rapidnet_jax.solver.controller import SmpcController
 
     net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=21)
     tree = generate_tree(N=8, branching=[4, 2], nd=3, nu=7, seed=21)
@@ -194,7 +222,7 @@ def test_controller_sharded_closed_loop(algorithm):
                                step_size=1e-3, algorithm=algorithm)
         fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=5, seed=21)
         return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
-                              backend="xla", mesh=mesh)
+                              mesh=mesh)
 
     log_ref = build(None).closed_loop(3)
     log_sh = build(make_mesh(8)).closed_loop(3)
@@ -211,7 +239,7 @@ def test_sharded_warm_start_and_tolerance(problem):
     """Warm start + early termination on the sharded path: fewer
     iterations to tolerance, same control (the reference always
     cold-starts, src/SmpcController.cu:425-432)."""
-    from rapidnet_tpu.parallel import (make_mesh, make_sharded_apg,
+    from rapidnet_jax.parallel import (make_mesh, make_sharded_apg,
                                        shard_factor_arrays,
                                        shard_step_arrays)
     kw = dict(_solver_kwargs(problem), max_iterations=400, tolerance=5e-2)
@@ -242,12 +270,12 @@ def test_controller_sharded_warm_closed_loop():
     """SmpcController(mesh, warm_start=True, tolerance=...) reduces
     closed-loop iterations vs the cold controller and tracks its
     controls."""
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
-    from rapidnet_tpu.parallel import make_mesh
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.model.config import synthetic_config
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.model.network import synthetic_network
+    from rapidnet_jax.model.scenario_tree import generate_tree
+    from rapidnet_jax.parallel import make_mesh
+    from rapidnet_jax.solver.controller import SmpcController
 
     net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=21)
     tree = generate_tree(N=8, branching=[4, 2], nd=3, nu=7, seed=21)
@@ -257,7 +285,7 @@ def test_controller_sharded_warm_closed_loop():
                                step_size=1e-3)
         fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=5, seed=21)
         return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
-                              backend="xla", mesh=make_mesh(8),
+                              mesh=make_mesh(8),
                               warm_start=warm, tolerance=5e-2)
 
     cold_ctrl, warm_ctrl = build(False), build(True)

@@ -11,9 +11,9 @@ import jax
 import numpy as np
 import pytest
 
-from rapidnet_tpu.engine.engine import XS_UPPER
-from rapidnet_tpu.io import jsonio
-from rapidnet_tpu.solver import solve_step as ss
+from rapidnet_jax.engine.engine import XS_UPPER
+from rapidnet_jax.io import jsonio
+from rapidnet_jax.solver import solve_step as ss
 from tests.conftest import fixture_path, requires_reference
 
 
@@ -42,7 +42,7 @@ def golden():
 def setup(ref_problem, ref_engine):
     """fa/step arrays at timeInst=1 (solveStep auto-initialises with the
     config state + forecast 1, src/SmpcController.cu:579-582)."""
-    from rapidnet_tpu.solver.controller import _factor_arrays, _step_arrays
+    from rapidnet_jax.solver.controller import _factor_arrays, _step_arrays
     fc = ref_problem["forecaster"]
     cfg = ref_problem["config"]
     fc.predict_demand(1)
@@ -135,10 +135,10 @@ def oracle_out(golden, setup):
 
     Unlike recomputing the residual/update identities from fixture
     arrays, this drives solve_step -> prox_g -> residual -> dual
-    update through rapidnet_tpu.solver.apg, so a regression anywhere
+    update through rapidnet_jax.solver.apg, so a regression anywhere
     in that chain (e.g. a flipped residual sign) fails these tests.
     """
-    from rapidnet_tpu.solver import apg as apg_mod
+    from rapidnet_jax.solver import apg as apg_mod
     to_fan, cfg = setup["to_fan"], setup["cfg"]
     nx, nu = cfg.nx, cfg.nu
     w_xi = to_fan(golden["acceleXi"], 2 * nx)
@@ -176,7 +176,7 @@ def test_dual_update(golden, setup, oracle_out):
 @requires_reference
 def test_apg_end_to_end(setup):
     """Full 500-iteration APG: infeasibility decreases, control feasible."""
-    from rapidnet_tpu.solver import apg as apg_mod
+    from rapidnet_jax.solver import apg as apg_mod
     cfg, fa, step = setup["cfg"], setup["fa"], setup["step"]
     run = jax.jit(apg_mod.make_apg(
         prefix_stages=setup["prefix_stages"],

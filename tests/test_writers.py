@@ -5,14 +5,14 @@ import pytest
 
 
 def test_problem_export_roundtrip(tmp_path):
-    from rapidnet_tpu.model.network import synthetic_network, DwnNetwork
-    from rapidnet_tpu.model.scenario_tree import (ScenarioTree,
+    from rapidnet_jax.model.network import synthetic_network, DwnNetwork
+    from rapidnet_jax.model.scenario_tree import (ScenarioTree,
                                                   generate_tree)
-    from rapidnet_tpu.model.forecaster import (JsonForecaster,
+    from rapidnet_jax.model.forecaster import (JsonForecaster,
                                                synthetic_forecaster)
-    from rapidnet_tpu.model.config import SmpcConfig, synthetic_config
-    from rapidnet_tpu.io.writers import export_problem
-    from rapidnet_tpu.engine.nullspace import nullspace_elimination
+    from rapidnet_jax.model.config import SmpcConfig, synthetic_config
+    from rapidnet_jax.io.writers import export_problem
+    from rapidnet_jax.engine.nullspace import nullspace_elimination
 
     net = synthetic_network(nx=5, nu=8, nd=3, ne=2, seed=1)
     tree = generate_tree(N=8, branching=[2, 2], nd=3, nu=8, seed=1)
@@ -47,7 +47,7 @@ def test_problem_export_roundtrip(tmp_path):
     np.testing.assert_allclose(cfg2.mat_l, L, rtol=1e-6)
     np.testing.assert_allclose(cfg2.cost_w, cfg.cost_w, rtol=1e-6)
     # the exported config is fully loadable by the controller
-    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_jax.solver.controller import SmpcController
     ctrl = SmpcController(paths["config"])
     u = ctrl.control_action(0)
     assert np.isfinite(u).all()

@@ -3,7 +3,7 @@
 Counterpart of the reference's Doxygen pipeline (Doxyfile + docs/, 618
 generated pages): a dependency-free docstring walker that emits one
 markdown reference covering every public module, class, method and
-function in rapidnet_tpu, with signatures.
+function in rapidnet_jax, with signatures.
 
 Usage: python tools/gen_api_reference.py [--out docs/api_reference.md]
 """
@@ -93,18 +93,20 @@ def main(argv=None) -> int:
         "docs", "api_reference.md"))
     args = ap.parse_args(argv)
 
-    import rapidnet_tpu
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import rapidnet_jax
 
     lines = [
-        "# rapidnet_tpu API reference",
+        "# rapidnet_jax API reference",
         "",
         "Generated from docstrings by `tools/gen_api_reference.py` — "
         "do not edit by hand.  Counterpart of the reference's Doxygen "
         "API docs (`/root/reference/Doxyfile`, `docs/`).",
     ]
     mods = []
-    pkgpath = rapidnet_tpu.__path__
-    for info in sorted(pkgutil.walk_packages(pkgpath, "rapidnet_tpu."),
+    pkgpath = rapidnet_jax.__path__
+    for info in sorted(pkgutil.walk_packages(pkgpath, "rapidnet_jax."),
                        key=lambda i: i.name):
         if ".native" in info.name and info.name.endswith("src"):
             continue
@@ -112,7 +114,7 @@ def main(argv=None) -> int:
             mods.append(importlib.import_module(info.name))
         except Exception as exc:  # noqa: BLE001
             print(f"skip {info.name}: {exc}", file=sys.stderr)
-    document_module(rapidnet_tpu, lines)
+    document_module(rapidnet_jax, lines)
     for mod in mods:
         document_module(mod, lines)
 

@@ -1,5 +1,5 @@
 """Warm-start study: closed-loop quality vs iteration budget, warm vs
-cold (VERDICT r3 task 5: produce the number or retract the claim).
+cold, the measurement behind solver/apg.py's warm-start note.
 
 The receding-horizon deployment question: with the previous solve's
 duals as the next solve's starting point, how small can the iteration
@@ -14,8 +14,7 @@ full-budget (cold-500) answer?  Protocol, on the bench problem
   warm-B; report the max relative control deviation from the
   reference trajectory across all steps.
 
-Prints one JSON row per run + a markdown table for
-docs/performance.md.
+Prints one JSON row per run and a markdown table.
 """
 
 from __future__ import annotations
@@ -39,9 +38,9 @@ def main():
     import jax
 
     from bench import build_problem
-    from rapidnet_tpu.engine.engine import XS_UPPER
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.solver import apg as apg_mod
+    from rapidnet_jax.engine.engine import XS_UPPER
+    from rapidnet_jax.model.forecaster import synthetic_forecaster
+    from rapidnet_jax.solver import apg as apg_mod
 
     cfg, eng, fa, make_step, tree = build_problem()
     base_kw = dict(inv_step=1.0 / cfg.step_size,
